@@ -7,7 +7,7 @@
 #   scripts/ci.sh wheel   -> build sdist+wheel from pyproject into dist/
 #
 # Tests force the CPU backend with 8 virtual devices via tests/conftest.py,
-# so this runs identically on any host (no TPU needed).
+# so this runs identically on any host (no accelerator needed).
 set -euo pipefail
 cd "$(dirname "$0")/.."
 

@@ -52,10 +52,10 @@ def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
 
 
 def lambda_features(sample):
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.vcf import read_vcf
-    from biograph_tpu.variants.coverage_tool import (
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.vcf import read_vcf
+    from biograph_jax.variants.coverage_tool import (
         annotate_coverage,
         annotate_pair_coverage,
         feature_matrix,
@@ -70,15 +70,15 @@ def lambda_features(sample):
 
 
 def hiv_features():
-    from biograph_tpu.io.bgimport import open_bg_dir
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.variants.coverage_tool import (
+    from biograph_jax.io.bgimport import open_bg_dir
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.variants.coverage_tool import (
         annotate_coverage,
         annotate_pair_coverage,
         feature_matrix,
     )
-    from biograph_tpu.variants.discover import DiscoverOptions, discover_variants
+    from biograph_jax.variants.discover import DiscoverOptions, discover_variants
 
     ss, rm, _ = open_bg_dir("/root/reference/datasets/hiv/biograph/ERR381524.bg")
     ref = Reference.from_fasta(
@@ -127,7 +127,7 @@ def synthetic_negatives(rng, n, like):
 
 
 def compute_metrics(seed=7):
-    from biograph_tpu.classifier.model import (
+    from biograph_jax.classifier.model import (
         GT_CLASSES,
         train_classifier,
         train_gt_classifier,
@@ -191,7 +191,7 @@ def compute_metrics(seed=7):
 
 
 def stack_cols():
-    from biograph_tpu.classifier.model import FEATURES
+    from biograph_jax.classifier.model import FEATURES
 
     return FEATURES
 

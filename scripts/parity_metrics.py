@@ -43,7 +43,7 @@ def main():
     if not os.path.isfile(results):
         subprocess.run(
             [
-                sys.executable, "-m", "biograph_tpu", "--platform", "cpu",
+                sys.executable, "-m", "biograph_jax", "--platform", "cpu",
                 "full_pipeline",
                 "--reads", os.path.join(GOLDEN, "e_coli_10000snp.fq"),
                 "--ref", REFDIR,
@@ -56,8 +56,8 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.variants.metrics import parity_report
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.variants.metrics import parity_report
 
     ref = Reference.from_reference_dir(REFDIR)
     stages = {
@@ -80,8 +80,8 @@ def main():
     # re-derives the deep donor variation; extras of the default pipeline
     # that land on fixpoint loci are proven 35x-deep real variants the
     # golden final.vcf simply never called
-    from biograph_tpu.io.fastq import read_fastq
-    from biograph_tpu.variants.golden_parity import golden_parity_calls
+    from biograph_jax.io.fastq import read_fastq
+    from biograph_jax.variants.golden_parity import golden_parity_calls
 
     batch = read_fastq(os.path.join(GOLDEN, "e_coli_10000snp.fq"))
     fix = golden_parity_calls(ref, batch.codes, batch.lengths)

@@ -24,10 +24,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.index.seqset import SeqsetRanges
-from biograph_tpu.parallel.distributed import global_mesh, initialize
-from biograph_tpu.parallel.sharded_seqset import (
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.index.seqset import SeqsetRanges
+from biograph_jax.parallel.distributed import global_mesh, initialize
+from biograph_jax.parallel.sharded_seqset import (
     ShardedRankArrays,
     make_sharded_seqset_ops,
 )
@@ -96,10 +96,10 @@ def main():
     # (parallel/discovery.py; trace_ref chunk scheduling over hosts) ---
     import tempfile
 
-    from biograph_tpu.build.readmap_build import build_readmap
-    from biograph_tpu.index.reference import Contig
-    from biograph_tpu.parallel.discovery import discover_variants_distributed
-    from biograph_tpu.variants.discover import DiscoverOptions, discover_variants
+    from biograph_jax.build.readmap_build import build_readmap
+    from biograph_jax.index.reference import Contig
+    from biograph_jax.parallel.discovery import discover_variants_distributed
+    from biograph_jax.variants.discover import DiscoverOptions, discover_variants
 
     class _Ref:
         def __init__(self, codes):
@@ -138,8 +138,8 @@ def main():
     # slice of the readmap's forward reads; merged finalize must equal the
     # single-pass engine exactly (parallel/discovery.py
     # discover_structural_distributed) ---
-    from biograph_tpu.parallel.discovery import discover_structural_distributed
-    from biograph_tpu.variants.pop_tracer import (
+    from biograph_jax.parallel.discovery import discover_structural_distributed
+    from biograph_jax.variants.pop_tracer import (
         SvOptions,
         discover_structural,
         reads_from_readmap,

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from biograph_tpu.ops.align_dp import align_blocks_batch
+from biograph_jax.ops.align_dp import align_blocks_batch
 
 
 def _apply_ops(ref, alt, ops):
@@ -53,7 +53,7 @@ def test_simple_cases(rng):
 
 def test_matches_scalar_nw_cost(rng):
     """Batch DP cost == scalar DP cost on random block pairs."""
-    from biograph_tpu.variants.discover import _align_decompose
+    from biograph_jax.variants.discover import _align_decompose
 
     refs, alts = [], []
     for _ in range(20):

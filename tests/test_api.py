@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from biograph_tpu.api import BioGraph, Sequence
-from biograph_tpu.core import dna
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.build.readmap_build import build_readmap
+from biograph_jax.api import BioGraph, Sequence
+from biograph_jax.core import dna
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.build.readmap_build import build_readmap
 
 
 def test_sequence_ops():
@@ -70,8 +70,8 @@ def test_biograph_missing(tmp_path):
 def test_sdk_read_handles_and_ranges(sample_bgt):
     """ReadmapRead / ReadmapPairStats / ReferenceRange / version exports
     (reference python/biograph/__init__.py export list)."""
-    import biograph_tpu
-    from biograph_tpu.index.reference import Reference
+    import biograph_jax
+    from biograph_jax.index.reference import Reference
 
     path, genome, codes = sample_bgt
     bg = BioGraph(path)
@@ -91,7 +91,7 @@ def test_sdk_read_handles_and_ranges(sample_bgt):
     ref = Reference(
         flat=genome,
         is_n=(genome == 255),
-        contigs=[__import__("biograph_tpu.index.reference", fromlist=["Contig"]).Contig("g", 0, len(genome))],
+        contigs=[__import__("biograph_jax.index.reference", fromlist=["Contig"]).Contig("g", 0, len(genome))],
     )
     rr = ref.make_range("g", 100, 160)
     assert rr.size == 60
@@ -101,10 +101,10 @@ def test_sdk_read_handles_and_ranges(sample_bgt):
     with _pytest.raises(ValueError):
         ref.make_range("g", 50, len(genome) + 1)
 
-    assert biograph_tpu.version() == biograph_tpu.__version__
-    assert isinstance(biograph_tpu.build_revision(), str)
+    assert biograph_jax.version() == biograph_jax.__version__
+    assert isinstance(biograph_jax.build_revision(), str)
 
-    from biograph_tpu.utils import genotyper
+    from biograph_jax.utils import genotyper
 
     gt, gq = genotyper(30, 15)
     assert gt == "0/1" and gq > 0

@@ -3,7 +3,7 @@ import os
 import numpy as np
 import pytest
 
-from biograph_tpu.io.bam import mate_pairs_from_names, read_bam, read_sam
+from biograph_jax.io.bam import mate_pairs_from_names, read_bam, read_sam
 
 GOLDEN = "/root/reference/golden"
 
@@ -38,8 +38,8 @@ def test_parallel_bgzf_matches_serial():
     real multi-block BAM (and on plain-gzip input it must decline)."""
     import gzip
 
-    from biograph_tpu.io.bam import _bgzf_decompress
-    from biograph_tpu.native import bgzf_decompress_native
+    from biograph_jax.io.bam import _bgzf_decompress
+    from biograph_jax.native import bgzf_decompress_native
 
     path = os.path.join(GOLDEN, "SRR003674_10000.bam")
     raw = np.memmap(path, np.uint8, "r")
@@ -64,7 +64,7 @@ def test_mate_pairing():
 def test_spill_dir_imports_match_ram(tmp_path):
     """spill_dir imports must be byte-identical to in-RAM imports, with the
     big matrices living on disk (memmap)."""
-    from biograph_tpu.io.fastq import read_fastq
+    from biograph_jax.io.fastq import read_fastq
 
     fq = "/root/reference/golden/quick_e_coli.fq"
     a = read_fastq(fq)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from biograph_tpu.core.bitvector import RankBits, popcount_np
+from biograph_jax.core.bitvector import RankBits, popcount_np
 
 
 def test_popcount():

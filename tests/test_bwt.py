@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.index.bwt import RefBwt, build_suffix_array
+from biograph_jax.core import dna
+from biograph_jax.index.bwt import RefBwt, build_suffix_array
 
 
 def test_suffix_array_small():
@@ -67,7 +67,7 @@ def test_save_load_roundtrip(tmp_path, rng):
 
 def test_lambda_reference_bwt():
     """Arbitrary-length exact queries over the real lambda reference."""
-    from biograph_tpu.index.reference import Reference
+    from biograph_jax.index.reference import Reference
 
     ref = Reference.from_reference_dir(
         "/root/reference/datasets/lambdaToyData/benchmark/ref_lambda"

@@ -1,6 +1,6 @@
 import numpy as np
 
-from biograph_tpu.classifier.model import (
+from biograph_jax.classifier.model import (
     Classifier,
     train_classifier,
 )

@@ -31,7 +31,7 @@ def test_classifier_filters_discovery_output(tmp_path):
     run = str(tmp_path / "run")
     subprocess.run(
         [
-            sys.executable, "-m", "biograph_tpu", "--platform", "cpu",
+            sys.executable, "-m", "biograph_jax", "--platform", "cpu",
             "full_pipeline",
             "--reads", os.path.join(GOLDEN, "e_coli_10000snp.fq"),
             "--ref", REFDIR,
@@ -44,10 +44,10 @@ def test_classifier_filters_discovery_output(tmp_path):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from biograph_tpu.classifier.model import train_classifier
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.fastq import read_fastq
-    from biograph_tpu.variants.golden_parity import golden_parity_calls
+    from biograph_jax.classifier.model import train_classifier
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.fastq import read_fastq
+    from biograph_jax.variants.golden_parity import golden_parity_calls
 
     results = _vcf_records(os.path.join(run, "analysis", "results.vcf"))
     feats = dict(np.load(os.path.join(run, "analysis", "features.npz")))

@@ -23,10 +23,10 @@ BENCH = "/root/reference/datasets/lambdaToyData/benchmark"
 
 
 def _features_for(sample):
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.vcf import read_vcf
-    from biograph_tpu.variants.coverage_tool import (
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.vcf import read_vcf
+    from biograph_jax.variants.coverage_tool import (
         annotate_coverage,
         annotate_pair_coverage,
         feature_matrix,
@@ -65,7 +65,7 @@ def _synthetic_negatives(rng, n, like):
 
 @pytest.mark.slow
 def test_rf_decision_parity_on_proband(rng):
-    from biograph_tpu.classifier.model import train_classifier
+    from biograph_jax.classifier.model import train_classifier
 
     _, f_f = _features_for("father")
     _, f_m = _features_for("mother")
@@ -112,7 +112,7 @@ def test_gt_classifier_proband_agreement(rng):
     pcmp coverage profiles + hom-ref synthetics, it must reproduce the
     pcmp genotyper's proband GTs (reference gt_classifier re-genotypes
     squareoff VCFs from the same feature frame)."""
-    from biograph_tpu.classifier.model import (
+    from biograph_jax.classifier.model import (
         GT_CLASSES,
         GtClassifier,
         train_gt_classifier,
@@ -185,7 +185,7 @@ def test_classifier_metrics_beyond_toy_gate():
 def test_feature_matrix_pcmp_parity_columns():
     """The feature frame carries the pcmp build_table_header analog columns
     (window-shape XC/MC/EC, GC context, PL_*, VARTYPE/REFSPAN/ASMLEN)."""
-    from biograph_tpu.classifier.model import FEATURES, stack_features
+    from biograph_jax.classifier.model import FEATURES, stack_features
 
     need = {
         "var_type", "abs_var_len", "refspan", "asmlen",

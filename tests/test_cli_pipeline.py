@@ -20,7 +20,7 @@ LAMBDA = "/root/reference/datasets/lambdaToyData/benchmark"
 
 def _run(args, **kw):
     return subprocess.run(
-        [sys.executable, "-m", "biograph_tpu", "--platform", "cpu", *args],
+        [sys.executable, "-m", "biograph_jax", "--platform", "cpu", *args],
         capture_output=True,
         text=True,
         cwd="/root/repo",
@@ -39,7 +39,7 @@ def _vcf_records(path):
 
 
 def test_cli_coverage_lambda(tmp_path):
-    """`biograph_tpu coverage` (run_coverage path) over the lambda trio .bg —
+    """`biograph_jax coverage` (run_coverage path) over the lambda trio .bg —
     including a multi-allelic and a symbolic record, which must pass through
     un-corrupted instead of being decoded as DNA."""
     vcf_in = tmp_path / "in.vcf"
@@ -97,7 +97,7 @@ def test_cli_coverage_lambda(tmp_path):
 
 @pytest.mark.slow
 def test_cli_full_pipeline_ecoli(tmp_path):
-    """`biograph_tpu full_pipeline` from reads to results.vcf, plus resume.
+    """`biograph_jax full_pipeline` from reads to results.vcf, plus resume.
 
     Asserts BOTH directions against golden/final.vcf in the region: full
     recall of golden records and a bounded number of extras (precision)."""
@@ -132,8 +132,8 @@ def test_cli_full_pipeline_ecoli(tmp_path):
     #     of them; raw reads prove the other 108)
     #   * any truth record we miss must itself have zero raw alt reads
     #     (pileup's 3882 ATTTT>ATTT is a samtools-era FP, not our FN)
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.variants.metrics import parity_report
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.variants.metrics import parity_report
 
     snap = json.load(
         open(os.path.join(os.path.dirname(__file__), "data", "ecoli_region_snapshot.json"))
@@ -309,8 +309,8 @@ def test_cli_tool_commands(tmp_path):
     bwt = str(tmp_path / "ref.bwt")
     r = _run(["ref2bwt", "--ref", os.path.join(LAMBDA, "ref_lambda"), "--out", bwt])
     assert r.returncode == 0, r.stderr[-2000:]
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.core import dna as _dna
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.core import dna as _dna
 
     ref = Reference.from_reference_dir(os.path.join(LAMBDA, "ref_lambda"))
     probe = _dna.codes_to_seq(ref.flat[5000:5040])
@@ -371,7 +371,7 @@ def test_cli_create_sample_and_cut(tmp_path):
     (reference: biograph_create.cpp:316-321 + read_importer.h:35)."""
     import numpy as np
 
-    from biograph_tpu.io.fastq import cut_reads, read_fastq, sample_mask, subset_batch
+    from biograph_jax.io.fastq import cut_reads, read_fastq, sample_mask, subset_batch
 
     src = os.path.join(GOLDEN, "quick_e_coli.fq")
     full = read_fastq(src)

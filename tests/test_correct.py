@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from biograph_tpu.core import dna
-from biograph_tpu.kmers.count import count_kmers
-from biograph_tpu.kmers.kmer_set import KmerSet
-from biograph_tpu.build.correct import correct_reads
+from biograph_jax.core import dna
+from biograph_jax.kmers.count import count_kmers
+from biograph_jax.kmers.kmer_set import KmerSet
+from biograph_jax.build.correct import correct_reads
 
 
 def _mk_reads(genome, n, L, rng):
@@ -82,9 +82,9 @@ def test_overrep_filter_parity():
     overrep.cpp find_near) with the reference's default thresholds."""
     import numpy as np
 
-    from biograph_tpu.core import dna
-    from biograph_tpu.kmers.count import KmerCounts
-    from biograph_tpu.kmers.kmer_set import filter_kmer_counts
+    from biograph_jax.core import dna
+    from biograph_jax.kmers.count import KmerCounts
+    from biograph_jax.kmers.kmer_set import filter_kmer_counts
 
     k = 23
     rng = np.random.default_rng(5)

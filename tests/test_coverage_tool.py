@@ -1,16 +1,16 @@
 import numpy as np
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.io.vcf import VcfRecord, VcfWriter, read_vcf
-from biograph_tpu.variants.coverage_tool import annotate_coverage, genotyper_log10
+from biograph_jax.core import dna
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.io.vcf import VcfRecord, VcfWriter, read_vcf
+from biograph_jax.variants.coverage_tool import annotate_coverage, genotyper_log10
 
 
 class FakeRef:
     def __init__(self, codes, name="chr1"):
-        from biograph_tpu.index.reference import Contig
+        from biograph_jax.index.reference import Contig
 
         self.flat = np.asarray(codes, np.uint8)
         self.contigs = [Contig(name=name, start=0, length=len(codes))]
@@ -91,8 +91,8 @@ def test_annotate_het(rng):
 
 def test_pair_coverage(rng):
     """Paired reads spanning a variant produce PC support."""
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.variants.coverage_tool import annotate_pair_coverage
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.variants.coverage_tool import annotate_pair_coverage
 
     G, L, FRAG = 4000, 40, 200
     genome = rng.integers(0, 4, size=G, dtype=np.uint8)
@@ -137,11 +137,11 @@ def test_region_parallel_coverage_identical(tmp_path):
     byte-identical VCF body and identical features vs single-process."""
     import os
 
-    from biograph_tpu.variants.coverage_tool import (
+    from biograph_jax.variants.coverage_tool import (
         _region_chunks,
         run_coverage_parallel,
     )
-    from biograph_tpu.io.vcf import read_vcf
+    from biograph_jax.io.vcf import read_vcf
 
     LAMBDA = "/root/reference/datasets/lambdaToyData/benchmark"
     src = os.path.join(LAMBDA, "family_pcmp.vcf")

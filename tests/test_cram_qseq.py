@@ -15,9 +15,9 @@ REFDIR = "/root/reference/datasets/reference/e_coli_k12_ASM584v1"
 
 @pytest.mark.slow
 def test_cram_matches_bam():
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.bam import read_bam
-    from biograph_tpu.io.cram import read_cram_batch
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.bam import read_bam
+    from biograph_jax.io.cram import read_cram_batch
 
     ref = Reference.from_reference_dir(REFDIR)
     cb, chdr = read_cram_batch(CRAM, ref)
@@ -33,7 +33,7 @@ def test_cram_matches_bam():
 
 
 def test_qseq_variants():
-    from biograph_tpu.io.qseq import read_qseq
+    from biograph_jax.io.qseq import read_qseq
 
     batches = {
         p: read_qseq(f"/root/reference/golden/test.qseq{p}")

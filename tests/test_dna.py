@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from biograph_tpu.core import dna
+from biograph_jax.core import dna
 
 
 def test_roundtrip():

@@ -8,7 +8,7 @@ import sys
 import numpy as np
 import pytest
 
-from biograph_tpu.io.bamwrite import SamRecord, write_bam, write_sam
+from biograph_jax.io.bamwrite import SamRecord, write_bam, write_sam
 
 
 def _recs():
@@ -31,7 +31,7 @@ def _recs():
 
 def test_bam_roundtrip_own_reader(tmp_path):
     """Our BGZF writer must be readable by our own native BAM reader."""
-    from biograph_tpu.io.bam import read_bam
+    from biograph_jax.io.bam import read_bam
 
     p = str(tmp_path / "w.bam")
     assert write_bam(p, [("chr1", 1000)], _recs()) == 3
@@ -42,7 +42,7 @@ def test_bam_roundtrip_own_reader(tmp_path):
     ]
     # read_bam restores reverse-strand reads to original orientation:
     # r1 stored as TTGG with FLAG_REVERSE -> revcomp CCAA
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     assert batch.sequence(0) == "ACGTACGT"
     assert batch.sequence(1) == "CCAA"
@@ -67,7 +67,7 @@ def ecoli_bgt(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("ea") / "quick.bgt")
     r = subprocess.run(
         [
-            sys.executable, "-m", "biograph_tpu", "--platform", "cpu",
+            sys.executable, "-m", "biograph_jax", "--platform", "cpu",
             "create", "--reads", "/root/reference/golden/quick_e_coli.fq",
             "--out", out, "--paired",
         ],
@@ -81,10 +81,10 @@ def ecoli_bgt(tmp_path_factory):
 def test_export_aligned_e2e(ecoli_bgt, tmp_path):
     """Reads out of the readmap, placed, written as BAM, read back by the
     native reader; VCF windows restrict the output."""
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.bam import read_bam
-    from biograph_tpu.tools.export_aligned import export_aligned
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.bam import read_bam
+    from biograph_jax.tools.export_aligned import export_aligned
 
     bg = BioGraph(ecoli_bgt)
     ref = Reference.from_reference_dir(

@@ -15,7 +15,7 @@ def father_bgt(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("gen") / "father.bgt")
     r = subprocess.run(
         [
-            sys.executable, "-m", "biograph_tpu", "--platform", "cpu",
+            sys.executable, "-m", "biograph_jax", "--platform", "cpu",
             "upgrade", "--in", os.path.join(LAMBDA, "father_lambda.bg"),
             "--out", out,
         ],
@@ -31,10 +31,10 @@ def test_generator_chain_lambda(father_bgt, tmp_path):
     -> generate_pair_cov -> split_phases -> dedup -> vcf_export, with the
     read-cov stage running inside par_pipeline; output matches the
     discovery CLI's calls for the same biograph."""
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.variants import generators as bgexvar
-    from biograph_tpu.variants.discover import DiscoverOptions
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.variants import generators as bgexvar
+    from biograph_jax.variants.discover import DiscoverOptions
 
     bg = BioGraph(father_bgt)
     ref = Reference.from_reference_dir(os.path.join(LAMBDA, "ref_lambda"))
@@ -74,7 +74,7 @@ def test_generator_chain_lambda(father_bgt, tmp_path):
 
 
 def test_par_pipeline_propagates_errors():
-    from biograph_tpu.variants import generators as bgexvar
+    from biograph_jax.variants import generators as bgexvar
 
     def boom(it):
         for i, x in enumerate(it):
@@ -92,9 +92,9 @@ def test_par_pipeline_propagates_errors():
 def test_trim_ref_rejects_wrong_ref(tmp_path):
     import numpy as np
 
-    from biograph_tpu.index.reference import Reference, Contig
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.variants import generators as bgexvar
+    from biograph_jax.index.reference import Reference, Contig
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.variants import generators as bgexvar
 
     flat = np.array([0, 1, 2, 3, 0, 1, 2, 3], np.uint8)  # ACGTACGT
     ref = Reference(
@@ -110,8 +110,8 @@ def test_trim_ref_rejects_wrong_ref(tmp_path):
 
 
 def test_verify_order_catches_disorder():
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.variants import generators as bgexvar
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.variants import generators as bgexvar
 
     ok = [
         VcfRecord(chrom="c", pos=1, ref="A", alt="T"),

@@ -27,9 +27,9 @@ def _golden_records():
 
 @pytest.mark.slow
 def test_golden_parity_preset(tmp_path):
-    from biograph_tpu.io.fastq import read_fastq
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.variants.golden_parity import (
+    from biograph_jax.io.fastq import read_fastq
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.variants.golden_parity import (
         golden_parity_calls,
         write_golden_parity_vcf,
     )

@@ -12,7 +12,7 @@ LAMBDA = "/root/reference/datasets/lambdaToyData/benchmark"
 
 def _run(args, **kw):
     return subprocess.run(
-        [sys.executable, "-m", "biograph_tpu", "--platform", "cpu", *args],
+        [sys.executable, "-m", "biograph_jax", "--platform", "cpu", *args],
         capture_output=True,
         text=True,
         cwd="/root/repo",
@@ -21,10 +21,10 @@ def _run(args, **kw):
 
 
 def test_grm_annotates_sv_breakends(tmp_path):
-    from biograph_tpu.index.bwt import RefBwt
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.tools.grm import annotate_grm
+    from biograph_jax.index.bwt import RefBwt
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.tools.grm import annotate_grm
 
     ref = Reference.from_reference_dir(os.path.join(LAMBDA, "ref_lambda"))
     bwt = RefBwt.build(np.asarray(ref.flat))
@@ -44,9 +44,9 @@ def test_grm_annotates_sv_breakends(tmp_path):
 def test_squareoff_trio(tmp_path):
     """Union of trio single-sample calls re-genotyped in all three samples:
     father-only variants must come back hom-ref/absent in mother."""
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.tools.squareoff import squareoff
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.tools.squareoff import squareoff
 
     ref = Reference.from_reference_dir(os.path.join(LAMBDA, "ref_lambda"))
     # build per-sample VCF paths from the committed pcmp expectations
@@ -80,9 +80,9 @@ def test_squareoff_matches_family_pcmp(tmp_path):
     """GT concordance against the reference's own multi-sample trio output
     (datasets/lambdaToyData/benchmark/family_pcmp.vcf) — the squareoff
     parity gate."""
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.tools.squareoff import squareoff
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.tools.squareoff import squareoff
 
     ref = Reference.from_reference_dir(os.path.join(LAMBDA, "ref_lambda"))
     # expected: per (pos,ref,alt) the per-sample GTs, in their column order

@@ -20,11 +20,11 @@ SNAP = os.path.join(os.path.dirname(__file__), "data", "hiv_snapshot.json")
 
 @pytest.mark.slow
 def test_hiv_divergent_discovery():
-    from biograph_tpu.io.bgimport import open_bg_dir
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.variants.coverage_tool import annotate_coverage
-    from biograph_tpu.variants.discover import DiscoverOptions, discover_variants
+    from biograph_jax.io.bgimport import open_bg_dir
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.variants.coverage_tool import annotate_coverage
+    from biograph_jax.variants.discover import DiscoverOptions, discover_variants
 
     ss, rm, _ = open_bg_dir(
         "/root/reference/datasets/hiv/biograph/ERR381524.bg"
@@ -66,10 +66,10 @@ def test_hiv_iterative_recovers_divergent_runs():
     """Donor-patching rounds (variants/iterate.py, graph_discover analog)
     must reach substantially deeper into the divergent runs than one round —
     every emitted record is coverage-validated by construction."""
-    from biograph_tpu.io.bgimport import open_bg_dir
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.variants.discover import DiscoverOptions
-    from biograph_tpu.variants.iterate import discover_variants_iterative
+    from biograph_jax.io.bgimport import open_bg_dir
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.variants.discover import DiscoverOptions
+    from biograph_jax.variants.iterate import discover_variants_iterative
 
     ss, rm, _ = open_bg_dir(
         "/root/reference/datasets/hiv/biograph/ERR381524.bg"

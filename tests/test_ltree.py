@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from biograph_tpu.ops.ltsearch import LtSearch, LtTree
+from biograph_jax.ops.ltsearch import LtSearch, LtTree
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

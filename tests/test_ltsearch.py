@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from biograph_tpu.ops.ltsearch import LtSearch
+from biograph_jax.ops.ltsearch import LtSearch
 
 
 def _brute_back(vals, pos, c):
@@ -46,9 +46,9 @@ def test_ltsearch_cross_block(rng):
 @pytest.mark.slow
 def test_push_front_drop_matches_reference_semantics():
     """push_front_drop drops context until the push succeeds."""
-    from biograph_tpu.core import dna
-    from biograph_tpu.build.seqset_build import build_seqset
-    from biograph_tpu.index.seqset import SeqsetRanges
+    from biograph_jax.core import dna
+    from biograph_jax.build.seqset_build import build_seqset
+    from biograph_jax.index.seqset import SeqsetRanges
 
     reads = ["ACGGCATTAA", "CATTAACCGG", "GGTTCCAAGG"]
     L = max(len(r) for r in reads)

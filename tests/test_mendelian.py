@@ -4,8 +4,8 @@ python/biograph/tools/mendelian_annotator.py)."""
 
 import json
 
-from biograph_tpu.tools.mendelian import classify_allele, me_check, size_cat
-from biograph_tpu.utils.pedigree import Pedigree
+from biograph_jax.tools.mendelian import classify_allele, me_check, size_cat
+from biograph_jax.utils.pedigree import Pedigree
 
 PED = """\
 #fam	ind	pat	mat	sex	pheno
@@ -72,7 +72,7 @@ VCF = """\
 
 
 def test_annotate_vcf_cli(tmp_path, capsys):
-    from biograph_tpu.cli import main
+    from biograph_jax.cli import main
 
     ped = tmp_path / "fam.ped"
     ped.write_text(PED)
@@ -128,8 +128,8 @@ def test_golden_lambda_meanno(tmp_path):
         "lamfam0\tmother\t0\t0\t2\t1\n"
     )
     out = tmp_path / "meanno.vcf"
-    from biograph_tpu.tools.mendelian import annotate_vcf
-    from biograph_tpu.utils.pedigree import Pedigree
+    from biograph_jax.tools.mendelian import annotate_vcf
+    from biograph_jax.utils.pedigree import Pedigree
 
     rep = annotate_vcf(
         os.path.join(bench, "family_pcmp.vcf"), str(out), Pedigree(str(ped))

@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.build.merge import merge_seqsets, migrate_readmap
+from biograph_jax.core import dna
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.build.merge import merge_seqsets, migrate_readmap
 
 
 def _reads(rng, genome, n, L=30):

@@ -3,8 +3,8 @@ sv_perf_check.py:56-80 metric-dict model)."""
 
 import numpy as np
 
-from biograph_tpu.index.reference import Contig
-from biograph_tpu.variants.metrics import (
+from biograph_jax.index.reference import Contig
+from biograph_jax.variants.metrics import (
     normalize_key,
     raw_read_support,
     stage_metrics,
@@ -42,7 +42,7 @@ class _Ref:
 def test_raw_read_support_haplotype_context(tmp_path):
     """Two nearby hom SNPs: a read set carrying BOTH validates each call only
     when the neighbour is applied to the probe window (context_calls)."""
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     rng = np.random.default_rng(3)
     ref_codes = rng.integers(0, 4, 120).astype(np.uint8)

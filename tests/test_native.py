@@ -3,8 +3,8 @@ import os
 import numpy as np
 import pytest
 
-from biograph_tpu.io.fastq import read_fastq
-from biograph_tpu.native import fastq_scan_native, get_lib
+from biograph_jax.io.fastq import read_fastq
+from biograph_jax.native import fastq_scan_native, get_lib
 
 GOLDEN = "/root/reference/golden"
 
@@ -41,8 +41,8 @@ def test_native_malformed():
 
 
 def test_native_pack_matches_python():
-    from biograph_tpu.core import dna
-    from biograph_tpu.native import get_lib
+    from biograph_jax.core import dna
+    from biograph_jax.native import get_lib
     import ctypes
 
     rng = np.random.default_rng(3)

@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.index.reference import Contig
-from biograph_tpu.variants.discover import (
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.index.reference import Contig
+from biograph_jax.variants.discover import (
     Assembly,
     DiscoverOptions,
     discover_variants,

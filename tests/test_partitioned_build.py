@@ -2,7 +2,7 @@
 
 The reference never holds the full suffix set (part_repo 4^d buckets +
 expander passes, modules/build_seqset/part_repo.h:9, expand.h:22-40); the
-TPU analog sorts prefix partitions in passes sized to an HBM budget.  The
+device analog sorts prefix partitions in passes sized to a memory budget.  The
 gate: the partitioned path must produce bit-identical structures to the
 one-shot device sort, under a budget smaller than the suffix working set.
 """
@@ -10,8 +10,8 @@ one-shot device sort, under a budget smaller than the suffix working set.
 import numpy as np
 import pytest
 
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.runtime.resources import MemoryBudget
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.runtime.resources import MemoryBudget
 
 
 def _assert_same(a, b):
@@ -56,7 +56,7 @@ def test_golden_structural_equivalence_partitioned():
     with a budget ~10x smaller than the suffix working set."""
     import jax.numpy as jnp
 
-    from biograph_tpu.io.bgimport import open_bg_dir
+    from biograph_jax.io.bgimport import open_bg_dir
 
     ss, rm, _ = open_bg_dir("/root/reference/golden/e_coli_10000snp.bg")
     fwd = np.nonzero(np.asarray(rm.is_forward))[0]

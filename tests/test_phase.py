@@ -4,11 +4,11 @@ reads — the dna_testutil-style synthetic pattern from SURVEY §4."""
 import numpy as np
 import pytest
 
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.index.reference import Contig, Reference
-from biograph_tpu.io.vcf import VcfRecord
-from biograph_tpu.variants.phase import phase_records
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.index.reference import Contig, Reference
+from biograph_jax.io.vcf import VcfRecord
+from biograph_jax.variants.phase import phase_records
 
 
 def _mk(rng, G=600):

@@ -30,14 +30,14 @@ def _vcf_records(path, strip_contig=True):
 
 @pytest.fixture(scope="module")
 def ecoli_ref():
-    from biograph_tpu.index.reference import Reference
+    from biograph_jax.index.reference import Reference
 
     return Reference.from_reference_dir(REFDIR)
 
 
 def test_kmer_count_golden_bitexact(tmp_path):
-    from biograph_tpu.io.fastq import read_fastq
-    from biograph_tpu.kmers.count import count_kmers
+    from biograph_jax.io.fastq import read_fastq
+    from biograph_jax.kmers.count import count_kmers
 
     batch = read_fastq(os.path.join(GOLDEN, "quick_e_coli.fq"))
     kc = count_kmers(batch.codes, batch.lengths, k=23)
@@ -50,8 +50,8 @@ def test_kmer_count_golden_bitexact(tmp_path):
 
 @pytest.mark.slow
 def test_pileup_concordance(ecoli_ref):
-    from biograph_tpu.io.fastq import read_fastq
-    from biograph_tpu.variants.pileup import run_pileup_pipeline, write_pileup_vcf
+    from biograph_jax.io.fastq import read_fastq
+    from biograph_jax.variants.pileup import run_pileup_pipeline, write_pileup_vcf
 
     batch = read_fastq(os.path.join(GOLDEN, "e_coli_10000snp.fq"))
     pl, counts, calls = run_pileup_pipeline(ecoli_ref, batch.codes, batch.lengths)
@@ -83,7 +83,7 @@ def test_cli_kmers_and_reference(tmp_path):
         [
             sys.executable,
             "-m",
-            "biograph_tpu",
+            "biograph_jax",
             "--platform",
             "cpu",
             "kmers",
@@ -107,10 +107,10 @@ def test_cli_kmers_and_reference(tmp_path):
 def test_assembly_discovery_concordance(ecoli_ref, tmp_path):
     """The wavefront assembly engine must recover all golden final.vcf
     records and all pileup.vcf SNPs within the tested region."""
-    from biograph_tpu.io.fastq import read_fastq
-    from biograph_tpu.build.seqset_build import build_seqset
-    from biograph_tpu.build.readmap_build import build_readmap
-    from biograph_tpu.variants.discover import (
+    from biograph_jax.io.fastq import read_fastq
+    from biograph_jax.build.seqset_build import build_seqset
+    from biograph_jax.build.readmap_build import build_readmap
+    from biograph_jax.variants.discover import (
         DiscoverOptions,
         discover_variants,
         write_discovery_vcf,
@@ -154,9 +154,9 @@ def test_bg_import_lambda_discovery(tmp_path):
     reproduce its variant calls exactly."""
     import gzip
 
-    from biograph_tpu.io.bgimport import open_bg_dir
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.variants.discover import (
+    from biograph_jax.io.bgimport import open_bg_dir
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.variants.discover import (
         DiscoverOptions,
         discover_variants,
     )
@@ -188,9 +188,9 @@ def test_bg_import_lambda_discovery(tmp_path):
 
 def test_bg_import_hiv_seqset():
     """The HIV divergent-sample .bg seqsets open and answer queries."""
-    from biograph_tpu.io.bgimport import open_bg_dir
+    from biograph_jax.io.bgimport import open_bg_dir
     import jax.numpy as jnp
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     ss, rm, meta = open_bg_dir(
         "/root/reference/datasets/hiv/biograph/ERR381524.bg"
@@ -211,8 +211,8 @@ def test_golden_bg_structural_equivalence():
     bit-identical to the reference-built original."""
     import jax.numpy as jnp
 
-    from biograph_tpu.io.bgimport import open_bg_dir
-    from biograph_tpu.build.seqset_build import build_seqset
+    from biograph_jax.io.bgimport import open_bg_dir
+    from biograph_jax.build.seqset_build import build_seqset
 
     ss, rm, _ = open_bg_dir(os.path.join(GOLDEN, "e_coli_10000snp.bg"))
     fwd = np.nonzero(np.asarray(rm.is_forward))[0]
@@ -241,10 +241,10 @@ def test_lambda_trio_pcmp_genotypes(sample):
     """Coverage-tool genotypes must agree with the reference's own pcmp
     output (<sample>_single_pcmp.vcf) on the lambda trio — includes 100bp
     and 300bp SV deletions and a 100bp insertion."""
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.vcf import VcfRecord
-    from biograph_tpu.variants.coverage_tool import annotate_coverage
+    from biograph_jax.api import BioGraph
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.vcf import VcfRecord
+    from biograph_jax.variants.coverage_tool import annotate_coverage
 
     base = "/root/reference/datasets/lambdaToyData/benchmark"
     bg = BioGraph(os.path.join(base, f"{sample}_lambda.bg"))

@@ -10,9 +10,9 @@ with exact breakpoints and split+pair support.
 import numpy as np
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.index.reference import Contig, Reference
-from biograph_tpu.variants.pop_tracer import (
+from biograph_jax.core import dna
+from biograph_jax.index.reference import Contig, Reference
+from biograph_jax.variants.pop_tracer import (
     SvOptions,
     discover_structural,
     reads_from_readmap,
@@ -110,7 +110,7 @@ def test_lambda_bg_sv_via_pair_path():
     import gzip
     import os
 
-    from biograph_tpu.api import BioGraph
+    from biograph_jax.api import BioGraph
 
     base = "/root/reference/datasets/lambdaToyData/benchmark"
     bg = BioGraph(os.path.join(base, "proband_lambda.bg"))
@@ -141,8 +141,8 @@ def test_sharded_scan_matches_single_pass(rng):
     """Distributed-SV contract: disjoint read slices scanned separately,
     merged, and finalized give exactly the single-pass records (the scan is
     the phase parallel/discovery.py shards by process)."""
-    from biograph_tpu.variants.align import RefKmerIndex
-    from biograph_tpu.variants.pop_tracer import (
+    from biograph_jax.variants.align import RefKmerIndex
+    from biograph_jax.variants.pop_tracer import (
         _sv_finalize,
         _sv_scan_reads,
         merge_edge_tables,
@@ -184,7 +184,7 @@ def test_reads_from_readmap_slice_contract():
     slices concatenate to the full matrix."""
     import os
 
-    from biograph_tpu.api import BioGraph
+    from biograph_jax.api import BioGraph
 
     base = "/root/reference/datasets/lambdaToyData/benchmark"
     bg = BioGraph(os.path.join(base, "proband_lambda.bg"))
@@ -243,7 +243,7 @@ def test_2kb_novel_insertion_breakend_assembly(rng):
     assert abs(r["pos"] - at) <= 8
     # the reconstructed insertion is the novel sequence itself
     got_ins = dna.seq_to_codes(r["alt"])[1:]
-    from biograph_tpu.variants.pop_tracer import _left_normalize_event
+    from biograph_jax.variants.pop_tracer import _left_normalize_event
 
     ln, rn, expect_ins = _left_normalize_event(
         np.asarray(ref.flat), at, at, ins
@@ -256,8 +256,8 @@ def test_2kb_novel_insertion_breakend_assembly(rng):
 def test_breakend_batch_matches_host_oracle(rng):
     """The batched device walk (_assemble_breakends_batch) must agree with
     the per-event host oracle (_assemble_breakend) on a spread of clusters."""
-    from biograph_tpu.variants.align import RefKmerIndex
-    from biograph_tpu.variants.pop_tracer import (
+    from biograph_jax.variants.align import RefKmerIndex
+    from biograph_jax.variants.pop_tracer import (
         SvOptions,
         _assemble_breakend,
         _assemble_breakends_batch,

@@ -1,111 +1,16 @@
-"""The host-dispatched chain steps must match the fori-loop probe engine
-bit-for-bit (they are the MXU path's math, checked here with the kernel
-disabled on the CPU backend)."""
+"""The rank-free probes must reproduce the fori-loop probe chains."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 
-@pytest.fixture(scope="module")
-def small_seqset():
-    from biograph_tpu.core import dna
-    from biograph_tpu.build.seqset_build import build_seqset
-
-    rng = np.random.default_rng(7)
-    genome = rng.integers(0, 4, 400).astype(np.uint8)
-    reads = []
-    for _ in range(120):
-        p = rng.integers(0, 400 - 30)
-        r = genome[p : p + 30].copy()
-        if rng.random() < 0.5:
-            r = (3 - r)[::-1].copy()
-        reads.append(r)
-    codes = np.stack(reads)
-    lengths = np.full(len(reads), 30, np.int32)
-    return build_seqset(jnp.asarray(codes), jnp.asarray(lengths)), genome
-
-
-def test_hostloop_matches_fori(small_seqset):
-    from biograph_tpu.index.probes import (
-        find_window_hostloop,
-        find_window_jit,
-        probe_exact_hostloop,
-        probe_exact_jit,
-        probe_ranges_hostloop,
-        probe_ranges_jit,
-    )
-
-    ss, genome = small_seqset
-    d = ss.d
-    text = jnp.asarray(genome)
-    P, depth = 256, 25
-    p0 = jnp.asarray(40, jnp.int64)
-    seg = jnp.asarray(0, jnp.int64)
-    ref = probe_ranges_jit(d, text, p0, seg, P, depth)
-    got = probe_ranges_hostloop(d, text, p0, seg, P, depth, use_kernel=False)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    pos = p0 + jnp.arange(P, dtype=jnp.int64)
-    m = jnp.full((P,), 20, jnp.int32)
-    ref = find_window_jit(d, text, pos, m, depth)
-    got = find_window_hostloop(d, text, pos, m, depth, use_kernel=False)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    for min_m in (0, 20):
-        ref = probe_exact_jit(d, text, pos, seg, depth, min_m)
-        got = probe_exact_hostloop(
-            d, text, pos, seg, depth, min_m, use_kernel=False
-        )
-        for a, b in zip(ref, got):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_fused_chains_match_fori(small_seqset):
-    """Whole-chain fused programs (one jit over all depth steps) must be
-    bit-identical to the fori-loop engine."""
-    from biograph_tpu.index.probes import (
-        find_window_fused,
-        find_window_jit,
-        probe_exact_fused,
-        probe_exact_jit,
-        probe_ranges_fused,
-        probe_ranges_jit,
-    )
-
-    ss, genome = small_seqset
-    d = ss.d
-    text = jnp.asarray(genome)
-    P, depth = 256, 25
-    p0 = jnp.asarray(40, jnp.int64)
-    seg = jnp.asarray(0, jnp.int64)
-    ref = probe_ranges_jit(d, text, p0, seg, P, depth)
-    got = probe_ranges_fused(d, text, p0, seg, P, depth, False)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    pos = p0 + jnp.arange(P, dtype=jnp.int64)
-    m = jnp.full((P,), 20, jnp.int32)
-    ref = find_window_jit(d, text, pos, m, depth)
-    got = find_window_fused(d, text, pos, m, depth, False)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    for min_m in (0, 20):
-        ref = probe_exact_jit(d, text, pos, seg, depth, min_m)
-        got = probe_exact_fused(d, text, pos, seg, depth, min_m, use_kernel=False)
-        for a, b in zip(ref, got):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_find_window_hash_matches_chain(rng):
     """The rank-free hash window probe (probes.find_window_hash) must
     reproduce find_window's (begin, end, size) exactly for its fixed
     length, including misses and group ranges wider than one entry."""
-    from biograph_tpu.build.seqset_build import build_seqset
-    from biograph_tpu.index.probes import find_window, find_window_hash
+    from biograph_jax.build.seqset_build import build_seqset
+    from biograph_jax.index.probes import find_window, find_window_hash
 
     R, L = 300, 40
     codes = rng.integers(0, 4, (R, L)).astype(np.uint8)

@@ -1,54 +1,62 @@
-"""MXU rank4 kernel vs the gather path (interpret mode on CPU)."""
+"""rank4_xla (the seqset's 4-way rank gather) and the seqset's gathers
+against plain numpy references."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from biograph_tpu.ops.rank4 import (
-    MAX_NW,
-    build_rank4_table,
-    rank4_pallas,
-    rank4_xla,
-)
+from biograph_jax.core.bitvector import rank_cum
+from biograph_jax.ops.rank4 import rank4_xla
+
+
+def _popcount(x):
+    x = np.asarray(x, np.uint64)
+    return sum(((x >> np.uint64(k)) & np.uint64(1)) for k in range(32)).astype(np.int64)
 
 
 def _structure(rng, nw):
     words = rng.integers(0, 1 << 32, (4, nw), dtype=np.uint64).astype(np.uint32)
-    pc = np.zeros((4, nw), np.int64)
-    for b in range(4):
-        pc[b] = [bin(int(w)).count("1") for w in words[b]]
+    pc = _popcount(words)
     cum = np.cumsum(pc, axis=1) - pc
     return words, cum
 
 
-@pytest.mark.parametrize("nw", [7, 300, 1000])
-def test_rank4_matches_xla(rng, nw):
+def _rank4_np(words, cum, pos):
+    """Bit-by-bit count of the set bits below each position, per base."""
+    nw = words.shape[1]
+    out = np.zeros((len(pos), 4), np.int64)
+    for i, p in enumerate(pos):
+        w, r = divmod(int(p), 32)
+        for b in range(4):
+            if w >= nw:
+                out[i, b] = cum[b, -1] + _popcount(words[b, -1])
+            else:
+                low = int(words[b, w]) & ((1 << r) - 1)
+                out[i, b] = cum[b, w] + bin(low).count("1")
+    return out
+
+
+@pytest.mark.parametrize("nw", [7, 300, 1000, 4097, 6144])
+def test_rank4_xla_matches_popcount(rng, nw):
     words, cum = _structure(rng, nw)
-    table = build_rank4_table(words, cum)
-    assert table is not None
-    n = nw * 32
-    pos = np.concatenate(
-        [rng.integers(0, n, 500), [0, 1, 31, 32, 33, n - 1, n]]
-    ).astype(np.int64)
-    got = np.asarray(
-        rank4_pallas(table, jnp.asarray(pos), True)  # interpret mode
-    )
-    want = np.asarray(rank4_xla(jnp.asarray(words), jnp.asarray(cum), pos))
-    assert (got == want).all(), np.argwhere(got != want)[:5]
+    n = 32 * nw  # the structure's end lies on a word boundary
+    bounds = [0, 1, 31, 32, 33, n // 2 // 32 * 32, n - 33, n - 32, n - 1, n]
+    pos = np.concatenate([rng.integers(0, n + 1, 300), bounds]).astype(np.int64)
+    got = np.asarray(rank4_xla(jnp.asarray(words), jnp.asarray(cum), pos))
+    np.testing.assert_array_equal(got, _rank4_np(words, cum, pos))
 
 
 def test_rank4_on_real_seqset(rng):
-    """Table built from a real (small) seqset answers push_front-equivalent
-    rank queries identically to the production rank()."""
-    from biograph_tpu.build.seqset_build import build_seqset
+    """On a real (small) seqset rank4 answers each base's rank exactly as
+    the per-base rank() does."""
+    from biograph_jax.build.seqset_build import build_seqset
 
     codes = rng.integers(0, 4, (300, 40)).astype(np.uint8)
     lens = np.full(300, 40, np.int32)
     ss = build_seqset(codes, lens)
-    table = build_rank4_table(ss.prev_words, ss.prev_cum)
-    assert table is not None
-    pos = rng.integers(0, ss.n_entries + 1, 600)
-    got = np.asarray(rank4_pallas(table, jnp.asarray(pos), True))
+    pos = np.concatenate([rng.integers(0, ss.n_entries + 1, 600),
+                          [0, 31, 32, ss.n_entries - 1, ss.n_entries]])
+    got = np.asarray(rank4_xla(ss.d.prev_words, ss.d.prev_cum, jnp.asarray(pos)))
     d = ss.d
     for b in range(4):
         want = np.asarray(
@@ -57,15 +65,8 @@ def test_rank4_on_real_seqset(rng):
         assert (got[:, b] == want).all()
 
 
-def test_too_big_returns_none(rng):
-    words = np.zeros((4, MAX_NW + 1), np.uint32)
-    cum = np.zeros((4, MAX_NW + 1), np.int64)
-    assert build_rank4_table(words, cum) is None
-
-
 def test_push4_matches_push_front(rng):
-    from biograph_tpu.build.seqset_build import build_seqset
-    from biograph_tpu.index.seqset import SeqsetRanges
+    from biograph_jax.build.seqset_build import build_seqset
 
     codes = rng.integers(0, 4, (200, 30)).astype(np.uint8)
     lens = np.full(200, 30, np.int32)
@@ -81,56 +82,26 @@ def test_push4_matches_push_front(rng):
         assert (np.asarray(ne4[:, b]) == np.asarray(c.end)).all()
 
 
-def test_rank4_hbm_matches_xla(rng):
-    """HBM-tier tiled kernel (past the VMEM cap) vs the gather path,
-    random AND clustered (tile-locality) query shapes, boundary positions."""
-    from biograph_tpu.ops.rank4 import build_rank4_hbm_table, rank4_hbm_pallas
+def test_sizes_at_exact_above_255(rng):
+    """Entry sizes come back unclipped, past one byte, and indices past the
+    last entry read the last entry."""
+    from biograph_jax.build.seqset_build import build_seqset
 
-    nw = MAX_NW + 1000  # just past the VMEM cap -> multiple tiles
-    words, cum = _structure(rng, nw)
-    res = build_rank4_hbm_table(words, cum)
-    assert res is not None
-    tiles, base = res
-    assert tiles.shape[0] >= 3
-    n = nw * 32
-    pos = np.concatenate(
-        [
-            rng.integers(0, n, 800),
-            np.clip(rng.normal(n // 2, 300, 800), 0, n).astype(np.int64),
-            [0, 1, 31, 32, n - 1, n],
-        ]
-    ).astype(np.int64)
-    got = np.asarray(rank4_hbm_pallas(tiles, base, jnp.asarray(pos), True))
-    want = np.asarray(rank4_xla(jnp.asarray(words), jnp.asarray(cum), pos))
-    assert (got == want).all(), np.argwhere(got != want)[:5]
+    codes = rng.integers(0, 4, (12, 300)).astype(np.uint8)
+    ss = build_seqset(codes, np.full(12, 300, np.int32))
+    sizes = np.asarray(ss.entry_sizes)
+    assert sizes.max() > 255
+    n = ss.n_entries
+    idx = np.concatenate([np.arange(n), [n, n + 7]])
+    got = np.asarray(ss.d.sizes_at(jnp.asarray(idx)))
+    np.testing.assert_array_equal(got, sizes[np.minimum(idx, n - 1)])
 
 
-def test_rank4_hbm_single_tile_bucket(rng):
-    """All queries landing in ONE tile exercise the dead-tail block path."""
-    from biograph_tpu.ops.rank4 import build_rank4_hbm_table, rank4_hbm_pallas
-
-    nw = 3 * 2048  # 3 tiles exactly
-    words, cum = _structure(rng, nw)
-    tiles, base = build_rank4_hbm_table(words, cum)
-    pos = rng.integers(2048 * 32, 2 * 2048 * 32, 300).astype(np.int64)
-    got = np.asarray(rank4_hbm_pallas(tiles, base, jnp.asarray(pos), True))
-    want = np.asarray(rank4_xla(jnp.asarray(words), jnp.asarray(cum), pos))
-    assert (got == want).all()
-
-
-def test_gather_bytes_interpret(rng):
-    from biograph_tpu.ops.rank4 import build_bytes_table, gather_bytes_pallas
-
-    vals = rng.integers(0, 255, 5000).astype(np.int32)
-    vals[17] = 300  # clips to 255
-    table = build_bytes_table(vals)
-    assert table is not None
-    idx = rng.integers(0, 5000, 4096)
-    got = np.asarray(gather_bytes_pallas(table, jnp.asarray(idx), True))
-    want = np.minimum(vals, 255)[idx]
-    assert (got == want).all()
-    # out-of-range indices (padding region) read 0
-    got2 = np.asarray(
-        gather_bytes_pallas(table, jnp.asarray(np.array([5000, 5321])), True)
-    )
-    assert (got2 == 0).all()
+@pytest.mark.parametrize("shape", [(37,), (4, 300)])
+def test_rank_cum_matches_numpy(rng, shape):
+    words = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    pc = _popcount(words)
+    want = np.cumsum(pc, axis=-1) - pc
+    got = np.asarray(rank_cum(jnp.asarray(words)))
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)

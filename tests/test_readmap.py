@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.build.readmap_build import build_readmap
+from biograph_jax.core import dna
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.build.readmap_build import build_readmap
 
 
 def _revcomp_str(s):
@@ -144,7 +144,7 @@ def test_save_load(tmp_path, sample):
     reads, mate_of, codes, lens, ss, rm = sample
     p = str(tmp_path / "readmap")
     rm.save(p)
-    from biograph_tpu.index.readmap import Readmap
+    from biograph_jax.index.readmap import Readmap
 
     rm2 = Readmap.load(p, ss)
     assert rm2.num_entries == rm.num_entries

@@ -14,7 +14,7 @@ import pytest
 
 
 def test_vcf_writer_ordering_canary():
-    from biograph_tpu.io.vcf import VcfRecord, VcfWriter
+    from biograph_jax.io.vcf import VcfRecord, VcfWriter
 
     buf = io.StringIO()
     w = VcfWriter(buf, sample="s")
@@ -41,7 +41,7 @@ class _Ref:
 
 
 def test_bed_exclusion_intervals(tmp_path):
-    from biograph_tpu.cli import _flat_overlaps, _load_bed
+    from biograph_jax.cli import _flat_overlaps, _load_bed
 
     ref = _Ref({"c1": 0, "c2": 1000})
     bed = tmp_path / "x.bed"
@@ -63,7 +63,7 @@ def test_bed_exclusion_intervals(tmp_path):
 
 
 def test_progress_runtime_stats():
-    from biograph_tpu.runtime.log import Progress
+    from biograph_jax.runtime.log import Progress
 
     p = Progress(label="t")
     with p.stage("alpha"):

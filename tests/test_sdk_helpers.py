@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.core import dna
-from biograph_tpu.index.reference import Contig, Reference
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.core import dna
+from biograph_jax.index.reference import Contig, Reference
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_overlap_reads(world):
 
 def test_region_and_visualize(world):
     bg, ref, donor, codes, lens = world
-    from biograph_tpu.utils import find_region_variants, visualize
+    from biograph_jax.utils import find_region_variants, visualize
 
     res = find_region_variants(bg, ref, "chr1", 1300, 1700)
     keys = {(v["pos"], v["ref"], v["alt"]) for v in res.variants}
@@ -120,7 +120,7 @@ def test_region_and_visualize(world):
 
 @pytest.mark.slow
 def test_breakpoint_variants(world, rng):
-    from biograph_tpu.utils import find_breakpoint_variants
+    from biograph_jax.utils import find_breakpoint_variants
 
     # dedicated world with a 500bp deletion
     G = 6000

@@ -1,7 +1,7 @@
 """Seqset construction + query tests against a brute-force model.
 
 The brute-force model mirrors the structure definition exactly (see
-biograph_tpu.index.seqset docstring): entries = prefix-maximal distinct
+biograph_jax.index.seqset docstring): entries = prefix-maximal distinct
 suffixes of reads+revcomps in prefix-first lexicographic order.
 """
 
@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.index.seqset import SeqsetRanges
+from biograph_jax.core import dna
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.index.seqset import SeqsetRanges
 
 
 def _revcomp_str(s):
@@ -149,7 +149,7 @@ def test_save_load(tmp_path):
     ss = build_seqset(codes, lens)
     p = str(tmp_path / "seqset")
     ss.save(p)
-    from biograph_tpu.index.seqset import Seqset
+    from biograph_jax.index.seqset import Seqset
 
     ss2 = Seqset.load(p)
     assert ss2.n_entries == ss.n_entries

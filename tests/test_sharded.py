@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from biograph_tpu.core import dna
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.parallel.mesh import make_mesh, sharded_pileup_step
-from biograph_tpu.parallel.sharded_seqset import (
+from biograph_jax.core import dna
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.parallel.mesh import make_mesh, sharded_pileup_step
+from biograph_jax.parallel.sharded_seqset import (
     ShardedRankArrays,
     make_sharded_rank,
     sharded_entry_push_front,
@@ -77,7 +77,7 @@ def test_sharded_push_front_chain(small_seqset):
 
 def test_sharded_pileup_2d_mesh():
     from jax.sharding import Mesh
-    from biograph_tpu.variants.align import RefKmerIndex
+    from biograph_jax.variants.align import RefKmerIndex
 
     rng = np.random.default_rng(2)
     G, k = 2048, 16

@@ -5,8 +5,8 @@ across a worker fleet, biograph_create.cpp:922-931)."""
 import numpy as np
 import pytest
 
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.build.sharded_build import build_seqset_sharded
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.build.sharded_build import build_seqset_sharded
 
 
 def _assert_same(a, b):
@@ -31,7 +31,7 @@ def test_sharded_build_bit_identical_random():
 
 @pytest.mark.slow
 def test_sharded_build_bit_identical_golden():
-    from biograph_tpu.io.fastq import read_fastq
+    from biograph_jax.io.fastq import read_fastq
 
     batch = read_fastq("/root/reference/golden/e_coli_10000snp.fq")
     ss1 = build_seqset(batch.codes, batch.lengths)

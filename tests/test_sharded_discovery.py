@@ -14,11 +14,11 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.index.reference import Contig
-from biograph_tpu.parallel.sharded_discovery import ShardedDiscoveryEngine
-from biograph_tpu.variants.discover import DiscoverOptions, discover_variants
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.index.reference import Contig
+from biograph_jax.parallel.sharded_discovery import ShardedDiscoveryEngine
+from biograph_jax.variants.discover import DiscoverOptions, discover_variants
 
 
 class FakeRef:
@@ -72,8 +72,8 @@ def test_sharded_engine_matches_local_golden_ecoli():
     """Golden-data gate: discovery over the E. coli test region with the
     seqset entry-sharded across all 8 virtual devices produces records
     identical to the local engine."""
-    from biograph_tpu.index.reference import Reference
-    from biograph_tpu.io.fastq import read_fastq
+    from biograph_jax.index.reference import Reference
+    from biograph_jax.io.fastq import read_fastq
 
     batch = read_fastq("/root/reference/golden/e_coli_10000snp.fq")
     ss = build_seqset(batch.codes, batch.lengths)
@@ -98,10 +98,10 @@ def test_adapter_primitives_match_local():
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from biograph_tpu.index.seqset import SeqsetRanges
-    from biograph_tpu.parallel.sharded_discovery import _ShardLocalDevice
-    from biograph_tpu.parallel.sharded_seqset import ShardedRankArrays
-    from biograph_tpu.variants.discover import _trunc_tables
+    from biograph_jax.index.seqset import SeqsetRanges
+    from biograph_jax.parallel.sharded_discovery import _ShardLocalDevice
+    from biograph_jax.parallel.sharded_seqset import ShardedRankArrays
+    from biograph_jax.variants.discover import _trunc_tables
 
     rng = np.random.default_rng(11)
     codes = rng.integers(0, 4, size=(300, 32), dtype=np.uint8)
@@ -115,7 +115,7 @@ def test_adapter_primitives_match_local():
     plen = 10
     seqs = np.asarray(ss.d.sequences(jnp.asarray(ids), plen))
     r = ss.d.find(jnp.asarray(seqs), jnp.asarray(np.full(64, plen, np.int32)))
-    want_nb, want_ne = ss.d.push4(r, use_kernel=False)
+    want_nb, want_ne = ss.d.push4(r)
     prev_lt, next_lt = (np.asarray(t) for t in _trunc_tables(ss, 8))
     Re = arrays.shared.shape[1]
     pl2 = np.full(Re * S, -1, np.int64)

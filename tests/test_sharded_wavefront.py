@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.index.seqset import SeqsetRanges
-from biograph_tpu.parallel.sharded_seqset import (
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.index.seqset import SeqsetRanges
+from biograph_jax.parallel.sharded_seqset import (
     ShardedRankArrays,
     make_sharded_seqset_ops,
 )
@@ -89,8 +89,8 @@ def test_sharded_wavefront_bitexact(setup, rng):
     """The production sharded wavefront — ShardedDiscoveryEngine.wavefront,
     the seed + early-exit loop the engine-mode _asm_start dispatches — must
     match the single-device _wavefront_jit bit-for-bit."""
-    from biograph_tpu.parallel.sharded_discovery import ShardedDiscoveryEngine
-    from biograph_tpu.variants import discover as D
+    from biograph_jax.parallel.sharded_discovery import ShardedDiscoveryEngine
+    from biograph_jax.variants import discover as D
 
     ss, ref, mesh, arrays = setup
     MAXP, k, min_w, probe_ctx = 64, 13, 1, 25
@@ -133,10 +133,10 @@ def test_sharded_wavefront_bitexact(setup, rng):
 
 
 def test_block_wavefront_bitexact(setup, rng):
-    """The host-dispatched block-fused wavefront (the TPU MXU path, kernel
-    disabled here) must match the single-program while_loop engine
-    bit-for-bit, for every block size alignment."""
-    from biograph_tpu.variants import discover as D
+    """The interleaved driver's chunked early-exit wavefront must match the
+    single-program while_loop engine bit-for-bit, for every chunk size
+    alignment."""
+    from biograph_jax.variants import discover as D
 
     ss, ref, mesh, arrays = setup
     MAXP, k, min_w, probe_ctx = 64, 13, 1, 25
@@ -169,9 +169,9 @@ def test_block_wavefront_bitexact(setup, rng):
         step = 1
         while step < MAXP:
             n = min(block, MAXP - step)
-            st = D._wavefront_block_jit(
+            st = D._wavefront_chunk_jit(
                 ss.d, packed, tt[0], tt[1], jnp.asarray(n_packed, jnp.int64),
-                st, jnp.int32(step), n, MAXP, k, min_w, probe_ctx, False,
+                st, jnp.int32(step), n, MAXP, k, min_w, probe_ctx,
             )
             step += n
         for name in want:
@@ -182,7 +182,7 @@ def test_block_wavefront_bitexact(setup, rng):
 
 def test_distributed_init_single_process():
     """task_mgr_local-style: the multi-host bring-up path runs one-process."""
-    from biograph_tpu.parallel.distributed import global_mesh, initialize
+    from biograph_jax.parallel.distributed import global_mesh, initialize
 
     ctx = initialize(num_processes=1)
     assert ctx.num_processes == 1 and not ctx.initialized

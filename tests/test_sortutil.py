@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from biograph_tpu.core import dna
-from biograph_tpu.ops import sortutil
+from biograph_jax.core import dna
+from biograph_jax.ops import sortutil
 
 
 def _pack_strs(strs):

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from biograph_tpu.core import dna
+from biograph_jax.core import dna
 
 
 def _mk(rng, n_reads=60, L=28):
@@ -56,9 +56,9 @@ def test_sdk_spec_fuzz(seed, tmp_path):
     import json
     import os
 
-    from biograph_tpu.api import BioGraph
-    from biograph_tpu.build.readmap_build import build_readmap
-    from biograph_tpu.build.seqset_build import build_seqset
+    from biograph_jax.api import BioGraph
+    from biograph_jax.build.readmap_build import build_readmap
+    from biograph_jax.build.seqset_build import build_seqset
 
     rng = np.random.default_rng(seed)
     codes, lengths = _mk(rng)
@@ -142,7 +142,7 @@ def test_sdk_spec_fuzz(seed, tmp_path):
 
 @pytest.mark.parametrize("seed", [3])
 def test_fm_index_fuzz(seed):
-    from biograph_tpu.index.bwt import RefBwt
+    from biograph_jax.index.bwt import RefBwt
 
     rng = np.random.default_rng(seed)
     text = rng.integers(0, 4, 800).astype(np.uint8)

@@ -2,7 +2,7 @@ import os
 
 import pytest
 
-from biograph_tpu.runtime.stages import Stage, StageError, StageRunner
+from biograph_jax.runtime.stages import Stage, StageError, StageRunner
 
 
 def test_stages_run_and_resume(tmp_path):
@@ -69,8 +69,8 @@ def test_stop_after(tmp_path):
 
 def test_config_layering(monkeypatch, tmp_path):
     """Config singleton analog: defaults < product json < env < CLI."""
-    from biograph_tpu.runtime.config import apply_options
-    from biograph_tpu.variants.discover import DiscoverOptions
+    from biograph_jax.runtime.config import apply_options
+    from biograph_jax.variants.discover import DiscoverOptions
 
     prod = tmp_path / "product.json"
     prod.write_text('{"beam_width": 64, "max_path": 100}')
@@ -89,7 +89,7 @@ def test_config_layering(monkeypatch, tmp_path):
 
 
 def test_artifact_manifest_and_profiles(tmp_path):
-    from biograph_tpu.runtime.stages import ArtifactInfo, Stage, StageRunner
+    from biograph_jax.runtime.stages import ArtifactInfo, Stage, StageRunner
 
     run = tmp_path / "run"
     out1 = tmp_path / "a.bin"
@@ -118,7 +118,7 @@ def test_container_codec_roundtrip(tmp_path):
     (reference codec-layer analog, modules/io/zip_slice.h)."""
     import numpy as np
 
-    from biograph_tpu.core.container import ArtifactReader, ArtifactWriter
+    from biograph_jax.core.container import ArtifactReader, ArtifactWriter
 
     p = str(tmp_path / "a.bgt")
     mask = np.zeros(100000, bool)
@@ -140,7 +140,7 @@ def test_container_codec_family(tmp_path):
     zip/bzip/entropy-coder classes) round-trips bit-exactly."""
     import numpy as np
 
-    from biograph_tpu.core.container import ArtifactReader, ArtifactWriter
+    from biograph_jax.core.container import ArtifactReader, ArtifactWriter
 
     rng = np.random.default_rng(7)
     data = {

@@ -11,7 +11,7 @@ import json
 import numpy as np
 import pytest
 
-from biograph_tpu.runtime import storage
+from biograph_jax.runtime import storage
 
 
 class MemStorage(storage.Storage):
@@ -77,7 +77,7 @@ def test_stage_runner_on_custom_scheme(mem):
     """The REAL StageRunner runs a two-stage pipeline entirely against the
     registered backend: manifest, resume skip, and artifact done-checks all
     go through the scheme."""
-    from biograph_tpu.runtime.stages import Stage, StageRunner
+    from biograph_jax.runtime.stages import Stage, StageRunner
 
     run_dir = "mem://runs/r1"
     calls = []

@@ -3,8 +3,8 @@ import os
 import numpy as np
 import pytest
 
-from biograph_tpu.tools import vdb
-from biograph_tpu.tools.qc import (
+from biograph_jax.tools import vdb
+from biograph_jax.tools.qc import (
     aggregate_qc,
     error_threshold,
     kmer_histogram,
@@ -32,7 +32,7 @@ def test_kmer_report_html(tmp_path):
 
 
 def test_refhash_order_independent():
-    from biograph_tpu.index.reference import Contig, Reference
+    from biograph_jax.index.reference import Contig, Reference
 
     flat = np.array([0, 1, 2, 3, 0, 0, 1, 1], np.uint8)
     r1 = Reference(
@@ -56,7 +56,7 @@ def test_refhash_order_independent():
 
 
 def test_vdb_roundtrip(tmp_path):
-    from biograph_tpu.io.vcf import VcfRecord, VcfWriter
+    from biograph_jax.io.vcf import VcfRecord, VcfWriter
 
     vcf = str(tmp_path / "in.vcf")
     with VcfWriter(vcf, sample="s1") as w:
@@ -72,7 +72,7 @@ def test_vdb_roundtrip(tmp_path):
     assert len(rows) == 2 and {r["pos"] for r in rows} == {100, 5}
     out = str(tmp_path / "out.vcf")
     assert vdb.export(db, "s1", out) == 3
-    from biograph_tpu.io.vcf import read_vcf
+    from biograph_jax.io.vcf import read_vcf
 
     back = read_vcf(out)
     assert [(r.chrom, r.pos, r.ref, r.alt) for r in back] == [

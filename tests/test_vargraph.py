@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from biograph_tpu.build.readmap_build import build_readmap
-from biograph_tpu.build.seqset_build import build_seqset
-from biograph_tpu.io.vcf import VcfRecord
-from biograph_tpu.variants.vargraph import evaluate_vargraph
+from biograph_jax.build.readmap_build import build_readmap
+from biograph_jax.build.seqset_build import build_seqset
+from biograph_jax.io.vcf import VcfRecord
+from biograph_jax.variants.vargraph import evaluate_vargraph
 
 
 class FakeRef:
@@ -65,7 +65,7 @@ def test_cis_het_pair(base):
     hap1 = ref.copy()
     hap1[400] = (ref[400] + 1) % 4
     hap1[420] = (ref[420] + 2) % 4
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     records = [
         VcfRecord("c", 401, dna.codes_to_seq(ref[400:401]),
@@ -88,7 +88,7 @@ def test_trans_multiallelic(base):
     hap2 = ref.copy()
     hap1[500] = (ref[500] + 1) % 4
     hap2[500] = (ref[500] + 2) % 4
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     records = [
         VcfRecord(
@@ -108,7 +108,7 @@ def test_hom_and_unsupported_edge(base):
     the joint pick keeps the hom path pair and calls the junk 0/0."""
     ref, rng = base
     hap = np.concatenate([ref[:600], ref[610:]])  # 10bp deletion on BOTH haps
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     records = [
         VcfRecord("c", 600, dna.codes_to_seq(ref[599:610]),
@@ -136,7 +136,7 @@ def test_joint_context_beats_allalt_donor(base):
     ref, rng = base
     hap1 = ref.copy()
     hap1[700] = (ref[700] + 1) % 4
-    from biograph_tpu.core import dna
+    from biograph_jax.core import dna
 
     records = [
         VcfRecord("c", 701, dna.codes_to_seq(ref[700:701]),
@@ -152,7 +152,7 @@ def test_joint_context_beats_allalt_donor(base):
     assert res.gt[1] in ("0/0", "./.")
 
     # the all-alt donor evaluation undercounts the true allele here
-    from biograph_tpu.variants.coverage_tool import annotate_coverage
+    from biograph_jax.variants.coverage_tool import annotate_coverage
 
     ann = annotate_coverage(rm, FakeRef(ref), records)
     assert ann.alt_depth[0] < res.edge_reads[0][0]

@@ -5,7 +5,7 @@ import math
 
 import pytest
 
-from biograph_tpu.tools.vcf_tools import (
+from biograph_jax.tools.vcf_tools import (
     freq_filter,
     hwe_exact,
     sample_paste,
@@ -137,7 +137,7 @@ def test_rvg_cleaner(tmp_path):
     """SVs kept; pair-backed smalls kept; phase-linked smalls kept (even
     retroactively from the backlog); pair-bare unphased noise dropped
     (rvg_cleaner.py behavior with PS/PC standing in for PI/PDP)."""
-    from biograph_tpu.tools.vcf_tools import rvg_cleaner
+    from biograph_jax.tools.vcf_tools import rvg_cleaner
 
     lines = [
         "##fileformat=VCFv4.2",

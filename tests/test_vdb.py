@@ -3,8 +3,8 @@ multi-sample export (reference: python/biograph/vdb/)."""
 
 import pytest
 
-from biograph_tpu.tools.vdb import VDB, sort_vcf
-from biograph_tpu.tools.vdb_filter import FilterError, translate
+from biograph_jax.tools.vdb import VDB, sort_vcf
+from biograph_jax.tools.vdb_filter import FilterError, translate
 
 
 def _write(path, lines):
@@ -224,7 +224,7 @@ def test_mixed_reference_rejected(db, tmp_path):
 
 def test_cli_groups(db, tmp_path, capsys):
     """The vdb vcf/study/query/sort CLI surface end-to-end (in-process)."""
-    from biograph_tpu.cli import main
+    from biograph_jax.cli import main
 
     vcf = _vcf(
         tmp_path / "cli.vcf",
@@ -314,7 +314,7 @@ def test_filter_fuzz_translates_to_valid_sql(db, tmp_path):
             rhs = f"{rng.randint(1, 50)} + {rng.randint(1, 9)}"
         return f"{f} {c} {rhs}"
 
-    from biograph_tpu.tools.vdb_filter import FilterError, translate
+    from biograph_jax.tools.vdb_filter import FilterError, translate
 
     n_ok = 0
     for _ in range(300):

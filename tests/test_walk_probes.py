@@ -10,7 +10,7 @@ import pytest
 
 @pytest.fixture(scope="module")
 def walk_seqset():
-    from biograph_tpu.build.seqset_build import build_seqset
+    from biograph_jax.build.seqset_build import build_seqset
 
     rng = np.random.default_rng(11)
     genome = rng.integers(0, 4, 600).astype(np.uint8)
@@ -35,7 +35,7 @@ def walk_seqset():
 
 def _brute(d, text, pos, ctx_lo, depth):
     """Longest existing window ending at each pos (linear scan over m)."""
-    from biograph_tpu.index.probes import find_window_jit
+    from biograph_jax.index.probes import find_window_jit
 
     P = pos.shape[0]
     bb = np.zeros(P, np.int64)
@@ -59,7 +59,7 @@ def _brute(d, text, pos, ctx_lo, depth):
 
 @pytest.mark.parametrize("lanes", [1, 7, 64])
 def test_walk_matches_brute(walk_seqset, lanes):
-    from biograph_tpu.index.probes import walk_ranges_fused
+    from biograph_jax.index.probes import walk_ranges_fused
 
     ss, text = walk_seqset
     d = ss.d
@@ -71,7 +71,7 @@ def test_walk_matches_brute(walk_seqset, lanes):
         np.asarray(x)
         for x in walk_ranges_fused(
             d, jnp.asarray(text), p0, 0, P, depth,
-            use_kernel=False, lanes=lanes,
+            lanes=lanes,
         )
     )
     exists = es > 0
@@ -84,7 +84,7 @@ def test_walk_matches_brute(walk_seqset, lanes):
 
 def test_walk_ctx_lo_clip(walk_seqset):
     """Windows must not cross the segment low bound (strand-half boundary)."""
-    from biograph_tpu.index.probes import walk_ranges_fused
+    from biograph_jax.index.probes import walk_ranges_fused
 
     ss, text = walk_seqset
     d = ss.d
@@ -97,7 +97,7 @@ def test_walk_ctx_lo_clip(walk_seqset):
         np.asarray(x)
         for x in walk_ranges_fused(
             d, jnp.asarray(text), p0, ctx_lo, P, depth,
-            use_kernel=False, lanes=5,
+            lanes=5,
         )
     )
     exists = es > 0
@@ -118,7 +118,7 @@ def test_walk_device_matches_brute(walk_seqset, own, widen_every, with_trunc,
     probes.walk_ranges_device) must reproduce the brute-force longest-window
     ranges exactly, with and without the constant-threshold trunc tables,
     across lane geometries and multi-span requests."""
-    from biograph_tpu.index import probes as PR
+    from biograph_jax.index import probes as PR
 
     ss, text = walk_seqset
     d = ss.d
